@@ -1,6 +1,6 @@
 """Device-reduced k-grid browsing and the two grid engines.
 
-TPU-specific workflow on top of the reference feature set: a large uniform
+A device-side workflow on top of the reference feature set: a large uniform
 k-grid is swept with the intensity (and chiral phase) reduced ON DEVICE —
 only the ω ≥ 0 / max_freq float32 planes cross the host boundary, which is
 what an interactive heatmap browser actually consumes (the reference computes
@@ -8,7 +8,7 @@ the full complex spectrum and slices it on host afterwards,
 psa_gui.py:2195-2214).
 
 Also shows the alternative NUFFT ``calculate_gridded`` engine and when to
-pick it (fast-PCIe hosts; see docs/PERF_NOTES.md for measured numbers).
+pick it (large uniform grids; the crossover is unmeasured on the H100).
 
 Run:  python examples/grid_browse_and_engines.py
 """

@@ -2,7 +2,7 @@
 color scale.
 
 Port of the reference example (reference: examples/k_grid_heatmap_example.py —
-201×201 grid with k_chunk_size=10,000).  On TPU the grid is one sharded sweep;
+201×201 grid with k_chunk_size=10,000).  On a device mesh the grid is one sharded sweep;
 here we keep a smaller default so the example runs anywhere.
 
 Run:  python examples/k_grid_heatmap_example.py

@@ -13,8 +13,8 @@ Run anywhere with a virtual 8-device CPU mesh:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/pod_mesh_semantics.py
 
-On a real TPU slice, drop the env vars — the same code shards over the
-physical chips.
+On a machine with several GPUs, drop the env vars — the same code shards
+over the physical devices.
 """
 import sys as _sys
 from pathlib import Path as _Path

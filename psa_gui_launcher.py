@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Convenience launcher for the PSA-TPU GUI (parity with the reference's
+"""Convenience launcher for the PSA GUI (parity with the reference's
 root-level psa_gui_launcher.py). Equivalent to the `psa-gui` console script."""
 import sys
 from pathlib import Path

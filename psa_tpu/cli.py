@@ -23,20 +23,18 @@ import logging
 from pathlib import Path
 
 import numpy as np
-import yaml
 
 from .core.calculator import SEDCalculator
 from .core.sed import SED
 from .io.loader import TrajectoryLoader
 from .utils.config_manager import ConfigManager
 from .utils.helpers import direction_label
-from .visualization.sed_plotter import SEDPlotter
 
 logger = logging.getLogger(__name__)
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description='Phonon Spectral Analysis Tool (TPU-native).')
+    parser = argparse.ArgumentParser(description='Phonon Spectral Analysis Tool.')
     parser.add_argument('--trajectory', type=str, required=True, help='Path to MD trajectory file.')
     parser.add_argument('--config', type=str, help='Path to YAML configuration file.')
     parser.add_argument('--output-dir', type=str, default='psa_output', help='Directory for results.')
@@ -46,8 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--recalculate-sed', action='store_true', help='Force recalculation of SED data.')
     parser.add_argument('--precision', choices=['parity', 'balanced', 'fast'],
                         default='parity',
-                        help="TPU matmul precision: 'parity' (f32-exact), "
-                             "'balanced' (3-pass bf16), or 'fast' (1-pass bf16).")
+                        help="Matmul precision: 'parity' (fp32 GEMM, holds 1e-6 "
+                             "of max|SED| against a float64 oracle), or "
+                             "'balanced' / 'fast' (both TF32 on an H100, "
+                             "2.5e-4).")
     parser.add_argument('--profile', action='store_true',
                         help='Emit a JAX profiler trace to <output-dir>/profile.')
     return parser
@@ -538,6 +538,7 @@ def main(argv=None) -> None:
                         format='%(asctime)s - %(levelname)s - %(message)s',
                         datefmt='%H:%M:%S')
     args = build_parser().parse_args(argv)
+    from .visualization.sed_plotter import SEDPlotter  # matplotlib: CLI only
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

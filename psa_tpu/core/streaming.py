@@ -1,10 +1,10 @@
-"""Out-of-core SED: stream a LAMMPS dump through the TPU in O(chunk) memory.
+"""Out-of-core SED: stream a LAMMPS dump through the device in O(chunk) memory.
 
 The in-memory engine needs the trajectory on host (`Trajectory`) or at least
 on disk as .npy (``mmap=True``).  This pipeline computes the SED straight from
 the text dump without EVER holding the trajectory: the projection
 ``S[t,k] = Σ_a data[t,a]·e^{ik·r̄_a}`` is elementwise in t, so frames stream
-through in time-chunks — each chunk is parsed, projected on the TPU, and its
+through in time-chunks — each chunk is parsed, projected on the device, and its
 rows written into the (n_t, 3, 2K) projected signal, which is ~N/K times
 smaller than the trajectory.  The FFT runs once at the end.
 

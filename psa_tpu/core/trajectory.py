@@ -4,7 +4,7 @@ Host-resident (NumPy) container with the same field set and invariants as the
 reference data layer (reference: src/psa/core/trajectory.py:8-45).  Device
 placement is the engine's job, not the container's: a Trajectory may describe
 hundreds of GB at pod scale, so arrays live on host (or memory-mapped on disk)
-and are streamed to TPU HBM chunk-wise by the SED engine.
+and are streamed to device memory chunk-wise by the SED engine.
 """
 from __future__ import annotations
 

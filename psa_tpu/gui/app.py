@@ -37,7 +37,7 @@ class PSAMainWindow:
 
     def __init__(self, root: tk.Tk):
         self.root = root
-        self.root.title("PSA-TPU — Phonon Spectral Analysis")
+        self.root.title("PSA — Phonon Spectral Analysis")
         self.root.geometry("1380x860")
         self.controller = AnalysisController()
         self._anim_job = None
@@ -289,9 +289,8 @@ class PSAMainWindow:
         labeled_combo(ggrid, "Engine:", self.grid_engine_var,
                       ('auto', 'direct', 'gridded'), row=9,
                       tooltip="auto = direct for browse planes; gridded = "
-                              "NUFFT engine — measured fastest for Peak "
-                              "surface on large uniform grids "
-                              "(see docs/PERF_NOTES.md)")
+                              "NUFFT engine, which auto picks for Peak "
+                              "surfaces on large uniform grids")
         labeled_combo(ggrid, "Polarization:", self.grid_pol_var,
                       ('total', 'longitudinal', 'transverse'), row=11,
                       tooltip="longitudinal = |k̂·Φ|² per grid point (LA), "

@@ -1,13 +1,17 @@
 """Native (C) fast parsing for trajectory I/O, bound via ctypes.
 
-The shared library is compiled once from ``fastparse.c`` on first use (the
-toolchain ships with the image); all callers fall back transparently to the
-NumPy text path when no compiler is available.
+The shared library is compiled from ``fastparse.c`` on first use, into a
+file named by the hash of the source and the build command
+(``libpsa_fastparse-<hash>.so``, git-ignored): a library built from another
+version of the source is never loaded.  All callers fall back transparently
+to the NumPy text path when no C compiler is available.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
+import os
 import subprocess
 import sysconfig
 import threading
@@ -20,23 +24,34 @@ logger = logging.getLogger(__name__)
 
 _HERE = Path(__file__).parent
 _SRC = _HERE / "fastparse.c"
-_LIB_PATH = _HERE / "libpsa_fastparse.so"
+_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-pthread')
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _compile() -> bool:
+def lib_path(src: Path = _SRC) -> Path:
+    """Library file for the current source: keyed by a hash of the source
+    bytes and the compiler flags."""
+    digest = hashlib.sha256(src.read_bytes() + ' '.join(_FLAGS).encode())
+    return _HERE / f"libpsa_fastparse-{digest.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> bool:
+    # build to a private name, then rename: a concurrent process never sees
+    # a half-written library
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     for cc in ('cc', 'gcc', 'clang'):
         try:
-            subprocess.run([cc, '-O3', '-march=native', '-shared', '-fPIC',
-                            '-pthread', str(_SRC), '-o', str(_LIB_PATH)],
+            subprocess.run([cc, *_FLAGS, str(_SRC), '-o', str(tmp)],
                            check=True, capture_output=True, timeout=120)
-            logger.info("Compiled native parser with %s -> %s", cc, _LIB_PATH.name)
+            os.replace(tmp, out)
+            logger.info("Compiled native parser with %s -> %s", cc, out.name)
             return True
         except (FileNotFoundError, subprocess.CalledProcessError,
                 subprocess.TimeoutExpired) as e:
             logger.debug("Native parser build with %s failed: %s", cc, e)
+            tmp.unlink(missing_ok=True)
     return False
 
 
@@ -47,12 +62,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not _LIB_PATH.exists():
-            if not _SRC.exists() or not _compile():
-                logger.info("Native parser unavailable; using NumPy text parsing.")
-                return None
+        if not _SRC.exists():
+            logger.info("Native parser source missing; using NumPy text parsing.")
+            return None
+        path = lib_path()
+        if not path.exists() and not _compile(path):
+            logger.info("Native parser unavailable; using NumPy text parsing.")
+            return None
         try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
+            lib = ctypes.CDLL(str(path))
             lib.psa_parse_doubles.restype = ctypes.c_long
             lib.psa_parse_doubles.argtypes = [
                 ctypes.c_char_p, ctypes.c_long,

@@ -12,7 +12,6 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
-import yaml
 
 from ..core.sed import SED
 from ..core.trajectory import Trajectory
@@ -47,6 +46,7 @@ class TrajectoryWriter:
         filepath = self.output_dir / (filename or 'config.yaml')
         logger.info("Saving configuration to %s", filepath)
         with open(filepath, 'w') as f:
+            import yaml
             yaml.dump(config, f, default_flow_style=False)
 
     def save_analysis_results(self, results: Dict[str, Any],

@@ -1,4 +1,4 @@
-"""JAX/XLA/Pallas compute kernels (the TPU hot path)."""
+"""JAX/XLA compute kernels (the device hot path)."""
 from . import dispersion, instantaneous, spectral, structure, timecorr, transport
 
 __all__ = ["dispersion", "instantaneous", "spectral", "structure",

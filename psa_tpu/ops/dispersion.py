@@ -19,7 +19,7 @@ non-uniform) central differences.
 This is host-side NumPy by design: the inputs are the peak surfaces
 (n_bands × n_k floats, ~100 kB for a 200² grid), already reduced on device
 by the sweep engines; sorting is a data-dependent sequential march with no
-FLOPs worth a TPU dispatch.
+FLOPs worth a device dispatch.
 
 Units: frequencies ν in THz (cycles/ps), k in rad/Å, so
 

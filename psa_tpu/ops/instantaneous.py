@@ -22,8 +22,8 @@ harmonic SED cannot produce — anharmonic broadening and frequency shifts
 enter through the time-dependent phases, and liquids have no meaningful
 r̄ at all — and the reference lacks them entirely.
 
-TPU design.  Unlike the SED there is NO matmul structure: the phase depends
-on (t, atom, k) jointly, so the hot loop is VPU-bound over a
+Device design.  Unlike the SED there is NO matmul structure: the phase
+depends on (t, atom, k) jointly, so the hot loop is elementwise-bound over a
 (t_chunk, atom_chunk, k_chunk) angle tensor.  We bound residency by tiling
 all three axes; the atom contraction (``einsum 'taw,tak->tkw'``) is a
 t-batched matmul XLA fuses with the phasor producers, and the t axis tiles
@@ -38,11 +38,10 @@ pass.  Two phase engines produce the per-element (cos, sin):
   :data:`_ANCHOR_WINDOW` frames, advanced by the small in-window delta
   phase through FMA-only minimax kernels and a complex multiply
   (:func:`_incremental_phasors`): NO per-element transcendentals or
-  compensated dots, ≤1e-6 phasor error.  On-chip measurement once the
-  trajectory is device-resident (scripts/tpu_campaign/phase_engine.json):
-  wins on the density-only observables (S(k) 1.4×, DSF-self 1.8×) but
-  loses badly on the 4-channel DSF accumulate — hence 'exact' is the
-  calculator default.
+  compensated dots, ≤1e-6 phasor error.  Which engine is faster per
+  observable was decided on another machine and is unmeasured on the
+  H100 (ROADMAP S5/D4); the calculator's ``phase_mode='auto'`` keeps
+  'exact' for the 4-channel DSF accumulate.
 
 Physical validity: ``exp(i k·r)`` is periodic-image-consistent only for
 box-commensurate k (each component a multiple of 2π/L for the box edge L —
@@ -157,14 +156,10 @@ def _instant_angles(pos: jnp.ndarray, k_vectors: jnp.ndarray) -> jnp.ndarray:
 
     Full double-single dot + Cody-Waite folding per (t, atom, k) element —
     the EXACT phase path.  A naive split form A = fold(k·r₀) + k·(r(t)−r₀)
-    was measured on the chip and REVERTED in round 3: warm time was the
-    same within session variance (23.5 vs 20.4 s at N=1e4/n_t=2500/K=512 —
-    cos/sin + the atom reduction dominate, not the angle dot) while parity
-    degraded ~1000× (the residual contraction lowered to bf16 MXU passes).
-    The round-4 incremental engine (:func:`_incremental_phasors`) instead
-    eliminates the per-element TRANSCENDENTALS — the part that actually
-    dominates — while keeping the delta arithmetic on the f32 VPU.
-    See docs/PERF_NOTES.md.
+    loses ~1000× in parity when its residual contraction runs at reduced
+    matmul precision.  The incremental engine (:func:`_incremental_phasors`)
+    instead eliminates the per-element TRANSCENDENTALS while keeping the
+    delta arithmetic in plain f32 elementwise ops.
     """
     t, a, _ = pos.shape
     flat = pos.reshape(t * a, 3).astype(jnp.float32)
@@ -174,7 +169,7 @@ def _instant_angles(pos: jnp.ndarray, k_vectors: jnp.ndarray) -> jnp.ndarray:
 
 # -- factored (anchor x delta) phasors ----------------------------------------
 #
-# VERDICT round-5 item 4 (the k-axis analog of the time-incremental engine).
+# The k-axis analog of the time-incremental engine.
 # Commensurate k live on the box reciprocal lattice: k = m·B with integer
 # Miller rows m and B = 2π·H⁻ᵀ.  Phases there satisfy
 #
@@ -193,12 +188,12 @@ def _instant_angles(pos: jnp.ndarray, k_vectors: jnp.ndarray) -> jnp.ndarray:
 # wrap-invariant to ~1e-7 rad regardless of |k·r|, which the per-element
 # exact path (f32 k) cannot even promise.
 #
-# MEASURED DESIGN CONSTRAINT (phase_engine_r5.json, v5e, 1e4 atoms × 2500
-# frames × 512 k): the phasor tensor must stay a pure broadcast-elementwise
-# producer so XLA fuses it into the mode contraction.  A first version
-# gathered product columns into the caller's k order on device
-# (jnp.take along the minor axis → one-hot matmul comparable to the main
-# contraction): DSF 0.33×, S(k) 0.28× vs the exact engine.  The engine
+# Design constraint: the phasor tensor must stay a pure broadcast-elementwise
+# producer so XLA fuses it into the mode contraction.  Gathering product
+# columns into the caller's k order on device (jnp.take along the minor
+# axis) lowers to a one-hot matmul comparable to the main contraction (a
+# 3× slowdown when measured on another machine; unmeasured on the H100,
+# ROADMAP S5/D4).  The engine
 # therefore emits modes in PRODUCT order (i·Nb + j) and the CALLER remaps
 # the reduced (tiny) planes on host via the returned column index — the
 # device never gathers.  Factorizations whose product space would exceed
@@ -378,7 +373,7 @@ def factor_k_chunk(k_vectors: np.ndarray, box: np.ndarray,
         max_prod_factor: bail out when the product-column count Na·Nb
             exceeds this multiple of the lane-padded n — the mode
             contraction runs over product columns, so overshoot is pure
-            extra MXU work.
+            extra matmul work.
 
     Returns:
         ((ka_hi, ka_lo, kb_hi, kb_lo), col_idx) — base-vector
@@ -486,10 +481,9 @@ def k_count(k_vectors) -> int:
 
 # -- incremental (anchored) phasors ------------------------------------------
 #
-# VERDICT round-4 item 2.  The exact path pays, per (t, atom, k) element, a
-# double-single dot + Cody-Waite fold + TWO hardware transcendentals
-# (jnp.cos/jnp.sin each lower to a full range-reduction + polynomial
-# sequence on the VPU).  But successive frames differ by |k·Δr| ≪ |k·r|:
+# The exact path pays, per (t, atom, k) element, a double-single dot +
+# Cody-Waite fold + TWO transcendentals (jnp.cos/jnp.sin each lower to a
+# full range-reduction + polynomial sequence).  But successive frames differ by |k·Δr| ≪ |k·r|:
 # anchoring one EXACT phasor per window of frames, every other frame needs
 # only the small in-window delta phase
 #
@@ -530,7 +524,7 @@ _COS_C = (np.float32(2.443315711809948e-5), np.float32(-1.388731625493765e-3),
 
 
 def _folded_sincos(d: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """(cos d, sin d) from FMA-class VPU ops only — no transcendentals.
+    """(cos d, sin d) from FMA-class elementwise ops only — no transcendentals.
 
     One Cody-Waite π/2 reduction + quadrant-selected minimax kernels;
     exact for |d| ≲ 2¹³·π/2 (the products j·DP_i stay exact), ~1e-7 abs.
@@ -566,7 +560,8 @@ def _min_image_delta(d: jnp.ndarray, box: jnp.ndarray):
     c0 = jnp.cross(h[1], h[2])
     c1 = jnp.cross(h[2], h[0])
     c2 = jnp.cross(h[0], h[1])
-    hinv = jnp.stack([c0, c1, c2], axis=1) / jnp.dot(h[0], c0)
+    hinv = jnp.stack([c0, c1, c2], axis=1) / jnp.dot(
+        h[0], c0, precision=jax.lax.Precision.HIGHEST)
     n_img = jnp.round(jnp.einsum('...j,ji->...i', d, hinv,
                                  precision=jax.lax.Precision.HIGHEST))
     # corr = n_img @ H, exactly (double-single accumulation per component)
@@ -616,13 +611,12 @@ def _incremental_phasors(pos: jnp.ndarray, k_vectors: jnp.ndarray,
     # f32 subtraction rounds at ulp(L) ≈ 1e-6 Å — TwoSum keeps the bits
     d, d_err = _two_sum(pr, -anchors[:, None])             # (n_w, w, A, 3)
     # Plain f32 dot — δ is small, so rounding is ~|δ|·2⁻²⁴.  The dot is
-    # unrolled as elementwise broadcast FMAs on the VPU: an einsum with
-    # contraction dim 3 pads onto the MXU at 3/128 utilization (×6 passes
-    # at HIGHEST) — measured on chip DOMINATING the kernel (0.53× the
-    # exact engine before this rewrite).
+    # unrolled as elementwise broadcast FMAs: an einsum with contraction
+    # dim 3 would run as a matmul with a 3-deep contraction, which wastes
+    # the matrix unit and dominated the kernel on another machine.
     kt = k_vectors.astype(jnp.float32)
 
-    def vpu_dot(v, table):
+    def fma_dot(v, table):
         acc = None
         for c in range(3):
             term = v[..., c:c + 1] * table[c][None, None, None, :]
@@ -633,15 +627,15 @@ def _incremental_phasors(pos: jnp.ndarray, k_vectors: jnp.ndarray,
     if box is not None:
         d_hi, d_lo, n_img = _min_image_delta(d, box)
         d_lo = d_lo + d_err
-        delta = vpu_dot(d_hi, kt_cols) + vpu_dot(d_lo, kt_cols)
+        delta = fma_dot(d_hi, kt_cols) + fma_dot(d_lo, kt_cols)
         # f32 k sits ~2⁻²⁴ off the reciprocal lattice, so each removed
         # image leaks the residual phase φ_i(k) = fold(k·H_i) ≈ 2π·dev —
         # add it back exactly (tiny (3, K) table, one extra small dot)
         h = box.astype(jnp.float32)
         phi = _accurate_angles(h, jnp.zeros_like(h), kt)   # (3, K)
-        delta = delta + vpu_dot(n_img, [phi[0], phi[1], phi[2]])
+        delta = delta + fma_dot(n_img, [phi[0], phi[1], phi[2]])
     else:
-        delta = vpu_dot(d, kt_cols) + vpu_dot(d_err, kt_cols)
+        delta = fma_dot(d, kt_cols) + fma_dot(d_err, kt_cols)
     cd, sd = _folded_sincos(delta)                         # (n_w, w, A, K)
     c = c0[:, None] * cd - s0[:, None] * sd
     s = s0[:, None] * cd + c0[:, None] * sd
@@ -829,8 +823,9 @@ def dsf_reduce(f_re: jnp.ndarray, f_im: jnp.ndarray, k_unit: jnp.ndarray,
     j = spec[..., 1:]                                         # (S, F, K, 3)
     s_plane = jnp.mean(jnp.real(rho) ** 2 + jnp.imag(rho) ** 2, axis=0)
     ku = k_unit.astype(jnp.float32)
-    jl_re = jnp.einsum('sfkc,kc->sfk', jnp.real(j), ku)
-    jl_im = jnp.einsum('sfkc,kc->sfk', jnp.imag(j), ku)
+    hp = lax.Precision.HIGHEST
+    jl_re = jnp.einsum('sfkc,kc->sfk', jnp.real(j), ku, precision=hp)
+    jl_im = jnp.einsum('sfkc,kc->sfk', jnp.imag(j), ku, precision=hp)
     c_l = jnp.mean(jl_re * jl_re + jl_im * jl_im, axis=0)
     total = jnp.mean(jnp.sum(jnp.real(j) ** 2 + jnp.imag(j) ** 2, axis=-1),
                      axis=0)
@@ -861,7 +856,7 @@ def sk_reduce(f_re: jnp.ndarray, f_im: jnp.ndarray, n_t: int) -> jnp.ndarray:
 def _autocorr_fft_len(n_t: int) -> int:
     """FFT length for LINEAR (non-circular) autocorrelation: the next
     power of two ≥ 2·n_t (≥ 2·n_t − 1 kills the wrap-around terms; the
-    power-of-two round-up keeps the TPU FFT on its fast path)."""
+    power-of-two round-up keeps the FFT on its fast radix-2 path)."""
     return 1 << (2 * n_t - 1).bit_length()
 
 
@@ -919,7 +914,9 @@ def isf_self_block(pos: jnp.ndarray, mask: jnp.ndarray,
     power = jnp.real(spec) ** 2 + jnp.imag(spec) ** 2
     corr = jnp.fft.ifft(power.astype(jnp.complex64), axis=0)[:n_lags]
     counts = (n_t - jnp.arange(n_lags)).astype(jnp.float32)
-    acc = jnp.einsum('lak,a->lk', jnp.real(corr), mask)
+    # a sum over every atom: at reduced matmul precision it loses ~3 digits
+    acc = jnp.einsum('lak,a->lk', jnp.real(corr), mask,
+                     precision=lax.Precision.HIGHEST)
     return (acc / counts[:, None]).astype(jnp.float32)
 
 
@@ -944,4 +941,5 @@ def dsf_self_block(pos: jnp.ndarray, mask: jnp.ndarray,
     spec = jnp.fft.fft(lax.complex(c, s), axis=0) / n_t
     spec = jnp.take(spec, freq_idx, axis=0)                   # (F, A, K)
     inten = jnp.real(spec) ** 2 + jnp.imag(spec) ** 2
-    return jnp.einsum('fak,a->fk', inten, mask).astype(jnp.float32)
+    return jnp.einsum('fak,a->fk', inten, mask,
+                      precision=lax.Precision.HIGHEST).astype(jnp.float32)

@@ -1,9 +1,10 @@
 """Multi-host (pod) initialization helpers.
 
-The reference has no distributed backend at all (SURVEY.md §5.8).  On a TPU
-pod, JAX's runtime handles ICI/DCN collectives once ``jax.distributed`` is
-initialized; these helpers wrap the standard boilerplate so the pod-scale
-sweep scripts stay declarative.
+The reference has no distributed backend at all (SURVEY.md §5.8).  Across
+several hosts, JAX's runtime handles the collectives (NVLink inside a host,
+the network between hosts) once ``jax.distributed`` is initialized; these
+helpers wrap the standard boilerplate so the pod-scale sweep scripts stay
+declarative.
 """
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ def initialize_cluster(coordinator_address: Optional[str] = None,
                        process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed for a multi-host run.
 
-    On Cloud TPU the arguments auto-detect from the metadata server; on other
-    clusters pass them explicitly or via JAX_COORDINATOR_ADDRESS /
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID.
+    Pass the arguments explicitly or via JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID (a cluster scheduler such as SLURM
+    can also be auto-detected by ``jax.distributed``).
     """
     import jax
     kwargs = {}

@@ -1,40 +1,28 @@
 """Persistent XLA compilation cache, enabled for the whole library.
 
-First compiles of the big fused programs (the whole-sweep browse scan, the
-gridded-engine spread matmuls) take minutes on remote-compile TPU runtimes —
-the repo's top measured headroom item (docs/ROADMAP.md "Direct-engine scan
-compile time").  XLA can persist compiled executables to disk and reload
-them in seconds in later processes; one config call turns that on.  This
-module makes the cache a library default instead of a per-user incantation.
+XLA can persist compiled executables to disk and reload them in later
+processes instead of compiling again; the big fused programs (the
+whole-sweep browse scan, the gridded-engine spread matmuls) are the ones
+worth keeping.  This module turns that on at ``psa_tpu`` import.
 
-The cache directory is PARTITIONED BY HOST FINGERPRINT (round-4 VERDICT
-item 3): XLA:CPU ahead-of-time executables bake in the compile host's
-machine features (AMX, AVX-512, ...), and reloading them on a different
-CPU is at best a ``cpu_aot_loader`` warning and at worst SIGILL.  XLA's
-own cache key does not include the host, so we key the directory instead:
-``<base>/<fingerprint>/`` where the fingerprint hashes the machine
-architecture, the CPU feature flags, and the jax/jaxlib versions.  A
-cache written on one machine is simply never visible on another.
+Where the cache lives:
 
-Residual known-benign noise: XLA's ``cpu_aot_loader`` may still print a
-"machine type ... doesn't match" error when reloading a big CPU program ON
-THE SAME MACHINE, because the compile-time feature list includes XLA's own
-codegen-preference pseudo-features (``+prefer-no-gather``,
-``+prefer-no-scatter``) that the host-side check cannot enumerate.
-Verified (round 5): diffing the two lists in such a warning shows the
-pseudo-features as the ONLY delta — identical real ISA, no SIGILL risk.
-A warning listing real ISA deltas (e.g. missing ``+amx-*``) would mean the
-fingerprint failed; that is the case worth investigating.
+  * ``JAX_COMPILATION_CACHE_DIR`` set (or ``jax_compilation_cache_dir``
+    configured before import): JAX already uses that directory, and this
+    module sets no other.
+  * otherwise: ``<checkout>/.jax_cache/<host fingerprint>/``, a fixed path
+    inside the source tree (git-ignored), so repeated runs from one
+    checkout hit and nothing is written outside it.
 
-Called once at ``psa_tpu`` import.  Opt out with ``PSA_TPU_NO_COMPILE_CACHE=1``;
-point the cache elsewhere with ``PSA_TPU_COMPILE_CACHE_DIR`` (default
-``~/.cache/psa_tpu/xla``; the fingerprint subdirectory is appended either
-way).  A user who already configured ``jax_compilation_cache_dir`` (flag,
-env var ``JAX_COMPILATION_CACHE_DIR``, or prior ``jax.config.update``)
-wins — we never override an explicit choice, including its host-keying.
+The default directory is PARTITIONED BY HOST FINGERPRINT: XLA:CPU
+ahead-of-time executables bake in the compile host's machine features
+(AMX, AVX-512, ...), and reloading them on a different CPU is at best a
+``cpu_aot_loader`` warning and at worst SIGILL.  XLA's own cache key does
+not include the host, so the directory does: the fingerprint hashes the
+machine architecture, the CPU feature flags and the jax/jaxlib versions.
+A cache written on one machine is never visible on another.
 
-The reference has no analog (pure NumPy, nothing to compile); this is part
-of the TPU-native runtime story.
+Opt out with ``PSA_TPU_NO_COMPILE_CACHE=1``.
 """
 from __future__ import annotations
 
@@ -42,8 +30,12 @@ import hashlib
 import logging
 import os
 import platform
+from pathlib import Path
 
 logger = logging.getLogger(__name__)
+
+#: ``<checkout>/.jax_cache``: the package lives at ``<checkout>/psa_tpu``.
+DEFAULT_BASE = Path(__file__).resolve().parents[2] / ".jax_cache"
 
 _enabled_dir: str | None = None
 
@@ -65,48 +57,44 @@ def host_fingerprint() -> str:
     """Short stable hash of everything an XLA:CPU AOT executable bakes in:
     machine architecture, CPU feature flags, and the jax/jaxlib versions
     (compiler output format changes across releases)."""
-    try:
-        import jax
-        import jaxlib
-        versions = f"{jax.__version__}/{jaxlib.__version__}"
-    except Exception:
-        versions = "no-jax"
+    import jax
+    import jaxlib
+    versions = f"{jax.__version__}/{jaxlib.__version__}"
     raw = "|".join((platform.machine(), _cpu_feature_flags(), versions))
     return hashlib.sha256(raw.encode()).hexdigest()[:16]
+
+
+def resolve_cache_dir(configured: str | None) -> tuple[str, bool]:
+    """(directory, ours): the configured directory when JAX already has one
+    (``ours`` False: leave it alone), else the fingerprinted default."""
+    if configured:
+        return configured, False
+    return str(DEFAULT_BASE / host_fingerprint()), True
 
 
 def enable_persistent_cache() -> str | None:
     """Idempotently enable the persistent compilation cache.
 
-    Returns the active cache directory, or None when disabled/unavailable.
+    Returns the active cache directory, or None when disabled.
     """
     global _enabled_dir
     if _enabled_dir is not None:
         return _enabled_dir
     if os.environ.get("PSA_TPU_NO_COMPILE_CACHE") == "1":
         return None
-    try:
-        import jax
-        current = jax.config.jax_compilation_cache_dir
-        if current:                      # user already chose a cache location
-            _enabled_dir = current
-            return _enabled_dir
-        base = os.environ.get(
-            "PSA_TPU_COMPILE_CACHE_DIR",
-            os.path.join(os.path.expanduser("~"), ".cache", "psa_tpu", "xla"))
-        cache_dir = os.path.join(base, host_fingerprint())
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        # Default threshold skips sub-second programs; keep it but drop the
-        # entry-size floor so medium programs (chunked sweeps) persist too.
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    import jax
+    cache_dir, ours = resolve_cache_dir(jax.config.jax_compilation_cache_dir)
+    if ours:
         try:
-            jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        except AttributeError:           # older jax: flag absent, fine
-            pass
-        _enabled_dir = cache_dir
-        logger.debug("persistent XLA compilation cache at %s", cache_dir)
-        return _enabled_dir
-    except Exception as e:               # never let cache setup break import
-        logger.debug("compilation cache not enabled: %s", e)
-        return None
+            os.makedirs(cache_dir, exist_ok=True)
+        except OSError as e:             # read-only checkout: run uncached
+            logger.debug("compilation cache not enabled: %s", e)
+            return None
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+    # Default threshold skips sub-second programs; keep it but drop the
+    # entry-size floor so medium programs (chunked sweeps) persist too.
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    _enabled_dir = cache_dir
+    logger.debug("persistent XLA compilation cache at %s", cache_dir)
+    return _enabled_dir

@@ -17,8 +17,6 @@ import math
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
-import yaml
-
 from .helpers import update_dict_recursively
 
 logger = logging.getLogger(__name__)
@@ -176,6 +174,7 @@ class ConfigManager:
         if not config_path.exists():
             raise FileNotFoundError(f"Config file not found: {config_path}")
         with open(config_path, 'r') as f:
+            import yaml
             user_cfg = yaml.safe_load(f)
         if user_cfg:
             unknown = set(user_cfg) - set(self.SECTIONS)
@@ -372,6 +371,7 @@ class ConfigManager:
             raise ValueError("No path given and no config_path set.")
         path.parent.mkdir(parents=True, exist_ok=True)
         with open(path, 'w') as f:
+            import yaml
             yaml.dump(self.config, f, default_flow_style=False)
         logger.info("Saved config to %s", path)
 

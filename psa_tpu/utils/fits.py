@@ -13,7 +13,7 @@ the fit window starts past the microscopic β-relaxation step.
 
 These run on HOST in float64: the inputs are tiny (n_lags × n_k curves
 already reduced on device) and a damped Gauss–Newton needs double
-precision — there are no FLOPs here worth a TPU dispatch.
+precision — there are no FLOPs here worth a device dispatch.
 """
 from typing import Optional, Tuple
 

@@ -1,9 +1,9 @@
 """glibc arena tuning for streamed multi-GB host buffers.
 
 On Firecracker-class VMs with lazy memory, FIRST-TOUCH page faults on fresh
-anonymous pages can run at single-digit MB/s (measured on this host class:
-0.4 GB first-touch in 169 s vs 0.03 s for the same allocation reused from
-the arena — docs/PERF_NOTES.md).  Every streamed superchunk that allocates
+anonymous pages can run at single-digit MB/s (0.4 GB first-touch in 169 s
+vs 0.03 s for the same allocation reused from the arena, measured on such a
+VM; unmeasured on the GPU host, ROADMAP D6).  Every streamed superchunk that allocates
 a fresh multi-GB numpy buffer then pays minutes of kernel time per chunk,
 burying the actual device transfer.
 

@@ -1,11 +1,11 @@
 """Profiling and observability utilities.
 
 The reference has no tracing/metrics at all (SURVEY.md §5.1 — tqdm bars and
-log lines only).  This module provides the TPU-native equivalents:
+log lines only).  This module provides the device-side equivalents:
 
-  * :class:`Timer` / :func:`timed` — wall-clock blocks with hard device
-    synchronization (a value-dependent readback fence, because some remote
-    TPU runtimes return from ``block_until_ready`` at enqueue time);
+  * :class:`Timer` / :func:`timed` — wall-clock blocks fenced with
+    ``jax.block_until_ready`` (dispatch is asynchronous, so a timing without
+    the fence measures the enqueue);
   * :func:`trace` — context manager around ``jax.profiler`` emitting a
     TensorBoard trace directory;
   * :func:`throughput_report` — normalizes a run into the metrics the
@@ -47,20 +47,10 @@ def progress_iter(iterable, total: Optional[int] = None, desc: str = "",
 
 
 def sync(tree: Any) -> None:
-    """Hard device synchronization on a pytree of arrays.
-
-    ``jax.block_until_ready`` plus a scalar readback of one element — the
-    readback is what actually fences on runtimes that acknowledge at enqueue.
-    """
+    """Wait until every array of a pytree has been computed on the device."""
     import jax
-    import jax.numpy as jnp
 
     jax.block_until_ready(tree)
-    leaves = jax.tree_util.tree_leaves(tree)
-    for leaf in leaves:
-        if hasattr(leaf, 'ravel') and getattr(leaf, 'size', 0) > 0:
-            float(jnp.asarray(leaf).ravel()[0])
-            break
 
 
 @dataclass

@@ -5,7 +5,7 @@ src/psa/visualization/sed_plotter.py:14-823) — same plot types, parameter
 names, scaling modes, theming, and data conventions — in a consolidated
 implementation: intensity extraction and scaling are shared helpers rather
 than copies in each plot method.  The plotter is backend-agnostic: it consumes
-host NumPy arrays, so SED objects produced on TPU plot unchanged.
+host NumPy arrays, so SED objects produced on the device plot unchanged.
 
 Plot types:
     2d_intensity    I(k, ω) dispersion map (pcolormesh, gouraud).

@@ -82,10 +82,10 @@ def worker(rank: int) -> None:
     assert pf.shape == (1, len(k_vectors))
     np.testing.assert_allclose(pf[0], expect_pf, atol=1e-6)
 
-    # multi-slice placement: k OUTER, so each process (= "slice") owns one
+    # multi-host placement: k OUTER, so each process (= host) owns one
     # k stripe and the t/a collectives (psum over atoms, all_gather over
-    # time) stay entirely within a process — the designed DCN layout
-    # (docs/DESIGN.md).  Verify the k-stripe ownership and that the result
+    # time) stay entirely within a process — only the collective-free k
+    # axis crosses hosts (docs/DESIGN.md).  Verify the k-stripe ownership and that the result
     # is unchanged.
     mesh_ko = make_mesh(shape=(2, 2, 2), k_outer=True)
     for k_idx in range(2):

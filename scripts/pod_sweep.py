@@ -2,7 +2,7 @@
 """Pod-scale k-grid SED sweep: the BASELINE.json north-star workload.
 
 Orchestrates the full large-scale pipeline for 10^6-atom, 10^5-step
-trajectories on a TPU mesh:
+trajectories on a device mesh (several GPUs, one or more hosts):
 
   1. memory-mapped trajectory (stays on disk; TrajectoryLoader(mmap=True)),
   2. (multi-host) jax.distributed initialization,
@@ -47,14 +47,15 @@ def main():
                         'frames in one pass); set so one superchunk fits HBM '
                         'when the trajectory cannot')
     p.add_argument('--hbm-gb', type=float, default=None,
-                   help='per-device HBM budget (GiB) for residency-aware mesh '
-                        'shaping; default: auto (half a v5e)')
+                   help='per-device memory budget (GiB) for residency-aware '
+                        'mesh shaping; default: a third of the device memory '
+                        'limit')
     p.add_argument('--precision', choices=['parity', 'balanced', 'fast'],
                    default='parity')
     p.add_argument('--engine', choices=['sharded', 'gridded'], default='sharded',
                    help="'sharded' = multi-device mesh sweep; 'gridded' = "
-                        "single-device NUFFT engine (only competitive on "
-                        "fast-PCIe hosts; see docs/PERF_NOTES.md)")
+                        "single-device NUFFT engine (which engine is faster "
+                        "on the H100 is unmeasured, ROADMAP S5)")
     p.add_argument('--browse', action='store_true',
                    help='reduce to omega>=0 intensity ON DEVICE and store '
                         'float32 planes instead of complex spectra '
@@ -100,9 +101,9 @@ def main():
                    help='initialize jax.distributed before building the mesh')
     p.add_argument('--k-outer', action=argparse.BooleanOptionalAction,
                    default=None,
-                   help='multi-slice mesh placement: k stripes over '
-                        'process/slice boundaries (DCN), t/a collectives '
-                        'inside each slice (default: on when multi-process)')
+                   help='multi-host mesh placement: k stripes over '
+                        'process boundaries (the network), t/a collectives '
+                        'inside each host (default: on when multi-process)')
     args = p.parse_args()
 
     if args.multihost:
@@ -165,8 +166,8 @@ def main():
     _, k_vecs, shape = calc.get_k_grid(args.plane, (args.k_min, args.k_max),
                                        (args.k_min, args.k_max),
                                        args.grid, args.grid)
-    # Multi-process runs default to the multi-slice placement: k (no
-    # collectives) over DCN, t/a collectives inside each slice.
+    # Multi-process runs default to the multi-host placement: k (no
+    # collectives) across hosts, t/a collectives inside each host.
     k_outer = (args.k_outer if args.k_outer is not None
                else jax.process_count() > 1)
     mesh = make_mesh(n_t=n_frames, n_atoms=n_atoms,

@@ -3,8 +3,8 @@ item 4 (the k-axis analog of the time-incremental engine).
 
 Commensurate k-lines and grid slices factor as outer sums of two small
 lattice base sets; the engine computes phasors over the Na·Nb PRODUCT
-columns as a pure broadcast outer product (no device gather — measured 3×
-slower with one, scripts/tpu_campaign/phase_engine_r5.json) and the caller
+columns as a pure broadcast outer product (no device gather, which lowers
+to a one-hot matmul as large as the main contraction) and the caller
 maps its k rows in via the returned column index.  Contracts pinned here:
 
 * phasor parity ≤ 1e-6 vs the float64 oracle AT THE EXACT LATTICE k

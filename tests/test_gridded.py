@@ -128,8 +128,9 @@ class TestPrecisionAndCache:
         _, k_vecs, shape = calc_fast.get_k_grid('xy', (-1, 1), (-1, 1), 6, 6)
         fast = calc_fast.calculate_gridded(k_vecs, shape)
         parity = SEDCalculator(traj, nx=4, ny=3, nz=2).calculate_gridded(k_vecs, shape)
-        # fast must still be a sane spectrum (loose tolerance; CPU 'fast'
-        # may be identical to parity since bf16 passes are TPU-only)
+        # fast must still be a sane spectrum (loose tolerance; on the CPU
+        # 'fast' may be identical to parity: reduced-precision GEMM inputs
+        # exist only on accelerators)
         assert rel(fast.sed, parity.sed) < 1e-1
 
     def test_gridded_cache_roundtrip(self, calc, tmp_path):
@@ -311,7 +312,7 @@ class TestPlanEdgeCases:
 
     def test_row_width_can_exceed_max_count(self):
         """A 12-atom-per-cell layout must be allowed one row of 16, not
-        forced into two MXU-starving rows of 8."""
+        forced into two rows of 8 (a shorter matmul contraction)."""
         from psa_tpu.ops.gridded import plan_kgrid
         # 4 cells x 12 atoms, placed mid-cell to avoid boundary leakage
         n_cells_coarse = 4

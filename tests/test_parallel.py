@@ -42,10 +42,10 @@ def test_mesh_shape_respects_time_divisibility():
 
 
 def test_k_outer_mesh_places_k_stripes_on_contiguous_devices():
-    """Multi-slice placement: with k_outer=True the k axis varies slowest
-    over the device list, so each contiguous device group (a slice / a
-    process on real pods) owns one k stripe and the t/a collectives stay
-    inside it (docs/DESIGN.md DCN layout)."""
+    """Multi-host placement: with k_outer=True the k axis varies slowest
+    over the device list, so each contiguous device group (a process / a
+    host in a multi-host run) owns one k stripe and the t/a collectives
+    stay inside it (docs/DESIGN.md)."""
     from psa_tpu.parallel import make_mesh
     mesh = make_mesh(shape=(2, 2, 2), k_outer=True)
     devs = jax.devices()
